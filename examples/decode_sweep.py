@@ -38,10 +38,13 @@ def main():
     ap.add_argument("--once", action="store_true")
     args = ap.parse_args()
 
+    import jax
     import jax.numpy as jnp
     from ogl_beamforming_tpu.ops.decode import decode_hadamard, hadamard_matrix
     from ogl_beamforming_tpu.runtime.upload import prepare_rf
-    from ogl_beamforming_tpu.utils.transfer import sync
+    from ogl_beamforming_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
 
     transmits = ([int(t) for t in args.transmits.split(",") if t]
                  or TRANSMIT_COUNTS)
@@ -55,11 +58,11 @@ def main():
         rf_dev = jnp.asarray(rf)
         h = hadamard_matrix(t)
         for _ in range(args.warmup):
-            sync(decode_hadamard(rf_dev, h))
+            jax.block_until_ready(decode_hadamard(rf_dev, h))
         t0 = time.perf_counter()
         for _ in range(AVERAGE_SAMPLES):
             out = decode_hadamard(rf_dev, h)
-        sync(out)
+        jax.block_until_ready(out)
         avg_ms = (time.perf_counter() - t0) / AVERAGE_SAMPLES * 1e3
         gbs = SAMPLE_COUNT * t * CHANNEL_COUNT * 2 / (avg_ms * 1e-3) / 1e9
         print(f"decode {t:3d} | {AVERAGE_SAMPLES}F Average: {avg_ms:8.3f} "

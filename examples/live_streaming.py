@@ -2,7 +2,7 @@
 
 Simulates a scanner streaming FORCES frames of a moving point target into a
 :class:`StreamingSession` while a browser LiveView serves the B-mode image,
-compute stats, and live controls at http://localhost:8765/ — the TPU
+compute stats, and live controls at http://localhost:8765/ — the
 equivalent of the reference's live-imaging UI loop.
 
     PYTHONPATH=.:$PYTHONPATH python examples/live_streaming.py [--frames 100]
@@ -17,6 +17,7 @@ import ogl_beamforming_tpu as bft
 from ogl_beamforming_tpu.params.enums import LiveImagingDirtyFlags, ShaderKind
 from ogl_beamforming_tpu.pipeline.executor import Beamformer
 from ogl_beamforming_tpu.runtime.streaming import StreamingSession
+from ogl_beamforming_tpu.utils.device import enable_compile_cache
 from ogl_beamforming_tpu.utils.hadamard import hadamard
 from ogl_beamforming_tpu.utils.transforms import das_transform_2d_xz
 from ogl_beamforming_tpu.viewer_web import LiveView
@@ -45,6 +46,7 @@ def main():
     ap.add_argument("--frames", type=int, default=100)
     ap.add_argument("--port", type=int, default=8765)
     args = ap.parse_args()
+    enable_compile_cache()
 
     p = bft.Parameters(
         sample_count=S, channel_count=C, acquisition_count=A,

@@ -1,15 +1,15 @@
 """Multi-host feeder pattern: one RF feeder per host, one global volume.
 
-Run ONE copy of this script per feeder host of a pod slice:
+Run ONE copy of this script per feeder host:
 
     python examples/multihost_feeders.py \
         --coordinator HOST0:8476 --num-hosts 4 --host-id $ID
 
 Each host's acquisition front-end owns the channel rows cabled to it
 (``local_channel_slice``); the global sharded RF array is assembled with
-no cross-host copy and the DAS partial-volume ``psum`` rides ICI/DCN.
-On a single machine (no pod) it degenerates to one feeder over the local
-chips — so the same script runs everywhere, which is the point.
+no cross-host copy and the DAS partial-volume ``psum`` rides the interconnect.
+On a single machine it degenerates to one feeder over the local
+devices — so the same script runs everywhere, which is the point.
 
 See parallel/multihost.py for the mechanics; parity with the unsharded
 plan is pinned by tests/test_multihost.py on a virtual 8-device mesh.
@@ -35,6 +35,8 @@ def main():
     multihost.init_multihost(args.coordinator, args.num_hosts, args.host_id)
 
     import jax
+    from ogl_beamforming_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     print(f"host {jax.process_index()}/{jax.process_count()}: "
           f"{jax.local_device_count()} local of {len(jax.devices())} devices")
 

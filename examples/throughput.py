@@ -16,6 +16,7 @@ Usage:
 import argparse
 import time
 
+import jax
 import numpy as np
 
 
@@ -53,8 +54,10 @@ def main():
                                                   KaiserFilterParameters,
                                                   MatchedChirpFilterParameters)
     from ogl_beamforming_tpu.pipeline.executor import Beamformer
-    from ogl_beamforming_tpu.utils.transfer import sync
+    from ogl_beamforming_tpu.utils.device import enable_compile_cache
     from ogl_beamforming_tpu.utils.zbp import load_zbp
+
+    enable_compile_cache()
 
     if args.synthetic:
         z = synthesize_zbp()
@@ -109,7 +112,7 @@ def main():
     for i in range(n):
         t0 = time.perf_counter()
         frame = bf.push_data_with_compute(raw)
-        sync(frame.data)
+        jax.block_until_ready(frame.data)
         dt = time.perf_counter() - t0
         times.append(dt)
         window = times[-32:]

@@ -1,4 +1,4 @@
-"""ogl_beamforming_tpu — a TPU-native ultrasound software beamformer.
+"""ogl_beamforming_tpu — an ultrasound software beamformer in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 rnpnr/ogl_beamforming (a C11 + Vulkan/GLSL real-time beamformer): Hadamard
@@ -10,7 +10,7 @@ the `ogl_beamformer_lib`-compatible client API.
 Layout:
   params/    parameter schema, enums, constants (single source of truth)
   utils/     host DSP: Hadamard construction, filter design, voxel transforms
-  ops/       compute stages: NumPy golden oracle + JAX/Pallas TPU kernels
+  ops/       compute stages: NumPy golden oracle, plain JAX, a GPU DAS kernel
   pipeline/  pipeline spec -> compiled executable, parameter blocks, stats
   parallel/  device-mesh sharding of the channel axis (psum-accumulated DAS)
   runtime/   streaming ingest, frame backlog, client API

@@ -1,19 +1,18 @@
-"""Delay-and-sum (DAS) beamforming on TPU.
+"""Delay-and-sum (DAS) beamforming in plain JAX: the reference path.
 
-This is the one genuinely custom kernel of the pipeline (SURVEY.md §7): a
-per-voxel gather over (channel, transmit) RF lines with fractional-delay
+A per-voxel gather over (channel, transmit) RF lines with fractional-delay
 interpolation, F-number apodization, and accumulation — shaders/das.glsl in
-the reference.
+the reference (SURVEY.md §7).
 
-TPU-native formulation: instead of one GPU thread per voxel doing scalar
-gathers from global memory, voxels are processed in blocks; for every
-(channel-or-acquisition scan step) the delay field for the whole voxel block
-is computed vectorially on the VPU and the RF line is gathered with
-``take_along_axis``.  Channel accumulation is a ``lax.scan`` (mirroring the
-reference's 16-channel chunk loop, beamformer_core.c:1577-1587) which also
-becomes the natural sharding axis on a multi-chip mesh: each device scans its
-channel shard and the partial volumes are ``psum``-reduced over ICI
-(see parallel/sharding.py).
+Voxels are processed in blocks; for every channel (or acquisition) scan
+step the delay field of the whole block is computed vectorially and the RF
+line is gathered with ``take_along_axis``.  Channel accumulation is a
+``lax.scan`` (mirroring the reference's 16-channel chunk loop,
+beamformer_core.c:1577-1587), which is also the sharding axis on a
+multi-device mesh: each device scans its channel shard and the partial
+volumes are ``psum``-reduced (see parallel/sharding.py).  This path runs on
+every platform and is what the GPU kernel (``ops/das_gpu.py``) is tested
+against; the planner picks between them (``pipeline/plan.py``).
 
 Geometry/indexing math mirrors das.glsl line-for-line; see
 ``ops/golden.py`` for the scalar model these functions are tested against.
@@ -29,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..params.enums import AcquisitionKind, InterpolationMode, RCAOrientation
+from . import das_gpu
 from .golden import DasParams
 
 _TWO_PI = 2.0 * np.pi
@@ -36,7 +36,7 @@ _TWO_PI = 2.0 * np.pi
 
 @dataclasses.dataclass(frozen=True)
 class DasStatic:
-    """Trace-time (bake) parameters — the TPU analogue of the reference's
+    """Trace-time (bake) parameters — the analogue of the reference's
     SPIR-V specialization constants (generated/beamformer.c:198-217).
 
     Everything here changes the compiled program; everything numeric that
@@ -56,11 +56,12 @@ class DasStatic:
     readi_group_count: int = 0
     coherency_weighting: bool = False
     voxel_block: int = 16384
-    """Voxels per inner block; bounds the (A, voxel_block) transient working
-    set (the VMEM-sizing analogue of the reference's fixed 16-channel chunk)."""
+    """Voxels per block of the XLA path; bounds its (A, voxel_block)
+    transient working set."""
     backend: str = "xla"
     """Kernel backend: "xla" (gather-based, runs everywhere), "pallas"
-    (Mosaic TPU kernel, ops/das_pallas.py), "pallas_interpret" (testing)."""
+    (the GPU kernel, ops/das_gpu.py), "pallas_interpret" (that kernel in
+    Pallas interpret mode, for tests on the CPU)."""
     global_points: tuple[int, int, int] | None = None
     """Full output grid when this kernel computes only a slab of it (voxel
     sharding, parallel/sharding.py): normalized voxel coordinates use these
@@ -70,12 +71,9 @@ class DasStatic:
     channel count under channel-axis sharding (parallel/sharding.py) —
     channel_count stays global for element-geometry terms."""
     frame_batch: int = 1
-    """Frames beamformed per kernel launch (``rf``: (B, C, A, S)).  The
-    per-pair delay/index math, apodization, chunk predication, and grid
-    overhead are pure geometry — batching shares them across B frames and
-    only the RF gathers scale, so offline/averaged throughput rises toward
-    the gather bound.  The TPU-native analogue of the reference's frame
-    averaging (sum.glsl + output_points.w), computed in one launch."""
+    """Frames beamformed per device program (``rf``: (B, C, A, S)), for
+    offline datasets and frame averaging (the reference's sum.glsl +
+    output_points.w path)."""
 
     @property
     def family(self) -> str:
@@ -160,8 +158,8 @@ def _world_points(st: DasStatic, dyn) -> jax.Array:
 
 
 def _apply_m4(m: jax.Array, pts: jax.Array) -> jax.Array:
-    # elementwise form: a (N,3)@(3,3) dot could run at TPU's default bf16
-    # matmul precision, corrupting world coordinates (delay indices)
+    # elementwise form: a (N,3)@(3,3) dot could run at reduced matmul
+    # precision (TF32 on the GPU), corrupting world coordinates
     return jnp.stack(
         [m[i, 0] * pts[..., 0] + m[i, 1] * pts[..., 1]
          + m[i, 2] * pts[..., 2] + m[i, 3] for i in range(3)], axis=-1)
@@ -494,10 +492,8 @@ def das(rf: jax.Array, dyn: dict, st: DasStatic):
             raise ValueError(f"rf leading dim {rf.shape[0]} != "
                              f"frame_batch {st.frame_batch}")
         if st.backend in ("pallas", "pallas_interpret"):
-            from .das_pallas import das_pallas
-            return das_pallas(rf, dyn, st,
-                              interpret=st.backend == "pallas_interpret")
-        # XLA fallback / reference path: map the single-frame kernel.
+            return das_gpu.das_gpu(rf, dyn, st,
+                                   interpret=st.backend == "pallas_interpret")
         st1 = dataclasses.replace(st, frame_batch=1)
         return jax.vmap(lambda f: das(f, dyn, st1))(rf)
     if st.family == "none":
@@ -510,9 +506,8 @@ def das(rf: jax.Array, dyn: dict, st: DasStatic):
             return zero, jnp.zeros((nx, ny, nz), jnp.float32)
         return zero
     if st.backend in ("pallas", "pallas_interpret"):
-        from .das_pallas import das_pallas
-        return das_pallas(rf, dyn, st,
-                          interpret=st.backend == "pallas_interpret")
+        return das_gpu.das_gpu(rf, dyn, st,
+                               interpret=st.backend == "pallas_interpret")
     if st.family == "forces" and st.readi_group_count > 1:
         block_fn = _readi_forces_block
     else:

@@ -1,4 +1,4 @@
-"""Display mapping and frame reductions on TPU.
+"""Display mapping and frame reductions.
 
 Covers the reference's Sum / MinMax shaders (shaders/sum.glsl,
 shaders/min_max.glsl — dormant in the reference planner,

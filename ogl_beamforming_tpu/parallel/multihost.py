@@ -2,10 +2,10 @@
 
 The reference is a single-node system; its ingest path is one producer
 process writing RF into the shm scratch (lib/ogl_beamformer_lib.c:491-570).
-At TPU-pod scale the acquisition front-end fans out across hosts: each
+At multi-host scale the acquisition front-end fans out across hosts: each
 host's feeder owns the channel rows physically cabled to it, uploads them
-to its *local* chips only, and the DAS partial-volume reduction rides
-ICI/DCN (parallel/sharding.py).  The assembly primitive is
+to its *local* devices only, and the DAS partial-volume reduction rides
+the interconnect (parallel/sharding.py).  The assembly primitive is
 ``jax.make_array_from_process_local_data``: the global (C, A, S) RF array
 is built from host-local channel shards with **no cross-host gather** —
 RF bytes never leave the host that acquired them until they are decoded,

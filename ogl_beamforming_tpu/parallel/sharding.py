@@ -2,13 +2,13 @@
 
 The reference is a single-GPU system; its scale axis is the 16-channel chunk
 loop that re-runs the pre-DAS stages per chunk and accumulates DAS into the
-frame (beamformer_core.c:1577-1587, das.glsl:406).  On TPU that same channel
+frame (beamformer_core.c:1577-1587, das.glsl:406).  Here that same channel
 axis becomes the distributed axis (SURVEY.md §2.2): every pre-DAS stage
 (decode, filter/demodulate, Hilbert) is channel-wise independent, and the
 DAS accumulation commutes with channel sharding — so each device runs the
 full pipeline on its channel shard with *global* element indices (the
 ``channel_offset`` push-constant analogue, fed from ``axis_index``) and the
-partial volumes are ``psum``-reduced over ICI.
+partial volumes are ``psum``-reduced (NCCL over NVLink on one host).
 
 Coherency weighting is the one stage that must run *after* the global sum
 (it divides accumulated coherent energy by accumulated incoherent energy),
@@ -56,21 +56,18 @@ def _sharded_fn(desc: PlanDescriptor, mesh: Mesh, axis_name: str):
     desc = _dc.replace(desc, stages=stages)
 
     def worker(rf_shard, dyn):
-        # Global receive-element indices for this shard — the TPU analogue
+        # Global receive-element indices for this shard — the analogue
         # of the reference's channel_offset push constant (das.glsl:215).
         offset = jax.lax.axis_index(axis_name) * local_channels
         dyn = dict(dyn)
         if "das" in dyn and dyn["das"]:
             das_dyn = dict(dyn["das"])
-            # plan-level precomputed tables describe the *global* channel
-            # range — each shard recomputes its own inside the frame
-            das_dyn.pop("das_tables", None)
             das_dyn["channel_offset"] = offset.astype(jnp.int32)
             dyn["das"] = das_dyn
         out = compose_stages(desc, rf_shard, dyn,
                              skip_coherency_normalize=True)
         # DAS accumulation commutes with channel sharding: all-reduce the
-        # partial volume(s) over ICI.
+        # partial volume(s).
         return jax.tree.map(lambda v: jax.lax.psum(v, axis_name), out)
 
     # check_vma=False: scan carries inside the worker start device-invariant
@@ -134,7 +131,7 @@ def _sharded_fn_2d(desc: PlanDescriptor, mesh: Mesh, channel_axis: str,
                    slab_axis: str):
     """Channel x slab sharding: each device beamforms its x-slab of the
     output from its channel shard; partial volumes psum over the channel
-    axis (ICI all-reduce), slabs concatenate without communication."""
+    axis (all-reduce), slabs concatenate without communication."""
     import dataclasses as _dc
     n_ch = mesh.shape[channel_axis]
     n_slab = mesh.shape[slab_axis]

@@ -9,8 +9,8 @@ backlog ring, and the RF upload ring.
 CHUNK_CHANNEL_COUNT = 16
 """Channels processed per pre-DAS pass in the reference (beamformer.meta:1).
 
-On TPU this is a *default* accumulation-chunk size; the planner is free to
-choose a larger chunk sized to VMEM/HBM instead of the fixed Vulkan value.
+Here the channel loop is not chunked: the DAS kernels loop over every
+channel of a shard (ops/das.py, ops/das_gpu.py).
 """
 
 FILTER_SLOTS = 4                  # beamformer.meta:2

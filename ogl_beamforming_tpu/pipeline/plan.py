@@ -1,6 +1,6 @@
 """Compute-plan builder: pipeline spec -> compiled XLA executable.
 
-The TPU analogue of the reference's compute-plan builder + shader
+The analogue of the reference's compute-plan builder + shader
 specialization (beamformer_core.c:412-831, vulkan.c:594-663): the graph of
 stride/data-kind reshapes disappears (XLA owns layout), but the *plan*
 survives as a pure function composed from the stage ops, traced once per
@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops import das as das_ops
+from ..ops import das_gpu
 from ..ops.coherency import coherency_weighting
 from ..ops.decode import decode_hadamard
 from ..ops.filtering import demodulate, fir_filter, hilbert
@@ -136,13 +137,16 @@ def _plan_stages(parameters: Parameters, pipeline: PipelineSpec,
     return stage_descs, sample_count, fs, time_offset, iq
 
 
-def resolve_das_backend(backend: str = "auto") -> str:
-    """"auto" picks the Pallas Mosaic kernel on real TPU, the portable
-    XLA-gather path elsewhere (XLA's per-voxel gathers serialize on TPU;
-    see ops/das_pallas.py)."""
+def resolve_das_backend(st: das_ops.DasStatic, backend: str = "auto") -> str:
+    """"auto" runs the GPU kernel (ops/das_gpu.py) on a GPU for the
+    families it implements, and ops/das.py otherwise: on other platforms,
+    for READI's Hadamard-weighted groups and for kinds without a dispatch
+    case (``das_gpu.supports``)."""
     if backend != "auto":
         return backend
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
+    if jax.default_backend() == "gpu" and das_gpu.supports(st):
+        return "pallas"
+    return "xla"
 
 
 def build_plan(parameters: Parameters, pipeline: PipelineSpec,
@@ -156,10 +160,9 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
     block's current state.
 
     ``frame_batch=B > 1`` builds a batched plan: call it with (B, ...)
-    raw frames and get (B, ...) volumes from ONE device program — pre-DAS
-    stages vmap (losslessly batched matmuls/convs) and the DAS kernel
-    shares its per-pair geometry work across the batch (the TPU-native
-    throughput mode for offline datasets / frame averaging)."""
+    raw frames and get (B, ...) volumes from ONE device program (pre-DAS
+    stages and DAS vmap over the batch) — the throughput mode for offline
+    datasets and frame averaging."""
     from ..ops.golden import DasParams  # layout of DAS parameters
 
     stage_descs, sample_count, fs, time_offset, iq = _plan_stages(
@@ -214,8 +217,9 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
         )
         das_static = dataclasses.replace(
             das_ops.make_static(dp, iq=iq, voxel_block=voxel_block),
-            backend=resolve_das_backend(das_backend),
             frame_batch=int(frame_batch))
+        das_static = dataclasses.replace(
+            das_static, backend=resolve_das_backend(das_static, das_backend))
         das_dyn = das_ops.make_dynamic(dp)
         stage_descs.append(StageDesc(kind=ShaderKind.DAS, das=das_static))
 
@@ -252,21 +256,6 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
     dyn["demodulation_frequency"] = jnp.float32(
         parameters.demodulation_frequency)
 
-    # Precompute the DAS activity/chunk-bound tables at plan-build time
-    # (pure functions of the traced geometry; parameter pushes rebuild the
-    # plan, so they can never go stale) — steady-state frames skip the
-    # in-jit table compute, the analogue of the reference doing its
-    # dispatch-layout work at plan commit (beamformer_core.c:1008-1120).
-    das_sd = next((sd for sd in stage_descs if sd.das is not None), None)
-    if das_sd is not None and das_sd.das.backend == "pallas" \
-            and das_sd.das.family != "none":
-        from ..ops.das_pallas import das_activity_tables, das_table_static
-        try:
-            das_dyn["das_tables"] = das_activity_tables(
-                das_dyn, das_table_static(das_sd.das))
-        except Exception:       # table precompute must never break planning
-            pass
-
     fn = _compiled_fn(desc)
     return CompiledPlan(descriptor=desc, fn=fn, dyn=dyn,
                         output_points=output_points, iq=iq,
@@ -299,10 +288,8 @@ def compose_stages(desc: PlanDescriptor, rf, dyn, *,
     which defers coherency normalization until after the cross-device psum.
 
     When the DAS stage carries ``frame_batch == B > 1``, ``rf`` is
-    (B, ...) raw frames: pre-DAS stages vmap over the batch (decode's
-    matmuls and the filter convs batch losslessly on the MXU) and the DAS
-    kernel consumes the whole batch in one launch, sharing its per-pair
-    geometry work across frames (ops/das_pallas.py).
+    (B, ...) raw frames: every stage maps over the batch inside one
+    program.
     """
     fb = max((sd.das.frame_batch for sd in desc.stages
               if sd.das is not None), default=1)
@@ -347,7 +334,7 @@ def _compiled_fn(desc: PlanDescriptor):
 
 @lru_cache(maxsize=32)
 def compiled_stage_fns(desc: PlanDescriptor):
-    """Individually-jitted per-stage callables for profile mode: the TPU
+    """Individually-jitted per-stage callables for profile mode: the
     analogue of the reference's per-dispatch GPU timestamps
     (beamformer_core.c:1577-1628).  Each fn maps (x, dyn) -> x'; the last
     stage may return the frame tuple."""

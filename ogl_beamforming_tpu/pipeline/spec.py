@@ -19,7 +19,7 @@ from ..params.types import Parameters
 
 CAPABILITY_HILBERT = True
 """The reference force-disables its CUDA Hilbert plugin
-(beamformer.c:96-99,264); the TPU framework implements Hilbert natively
+(beamformer.c:96-99,264); this framework implements Hilbert natively
 (ops/filtering.py) so the capability is on."""
 
 

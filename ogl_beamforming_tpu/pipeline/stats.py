@@ -5,10 +5,10 @@ Mirrors the reference's exported stats ABI
 window plus RF inter-arrival deltas, coalesced the same way as
 beamformer_core.c:1655-1719.
 
-On TPU a fused pipeline executes as one XLA program, so per-stage GPU
-timestamps have no direct analogue; the executor records whole-pipeline
-device time per frame by default and optionally per-stage times when run in
-``profile`` mode (stages dispatched as separate programs).
+Here a fused pipeline executes as one XLA program, so per-dispatch GPU
+timestamps have no direct analogue; by default the executor records each
+frame's time split by calibrated stage fractions, and in ``profile`` mode
+(stages dispatched as separate programs) per-stage times.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Developer hot-reload: watch op sources, invalidate compiled plans.
 
-The TPU analogue of the reference's inotify shader watching + library
+The analogue of the reference's inotify shader watching + library
 hot-reload (main_linux.c:206-255,342-365, beamformer_core.c:1799-1853):
 edited GLSL marked pipelines dirty and recompiled on the next frame.  Here
 the watched units are the Python op modules; a change reloads them, clears
@@ -21,7 +21,7 @@ _WATCHED_MODULES = [
     "ogl_beamforming_tpu.ops.decode",
     "ogl_beamforming_tpu.ops.filtering",
     "ogl_beamforming_tpu.ops.das",
-    "ogl_beamforming_tpu.ops.das_pallas",
+    "ogl_beamforming_tpu.ops.das_gpu",
     "ogl_beamforming_tpu.ops.coherency",
     "ogl_beamforming_tpu.ops.display",
     "ogl_beamforming_tpu.pipeline.plan",
@@ -35,11 +35,8 @@ def invalidate_compiled(beamformers=()):
     plan_mod.clear_plan_cache()
     if hasattr(plan_mod, "compiled_stage_fns"):
         plan_mod.compiled_stage_fns.cache_clear()
-    try:
-        from ..ops import das_pallas
-        das_pallas._das_call.cache_clear()
-    except Exception:
-        pass
+    from ..ops import das_gpu
+    das_gpu._call.cache_clear()
     for bf in beamformers:
         for block in bf._blocks:
             block.mark_dirty()

@@ -6,8 +6,8 @@
  * against this library unchanged.  The shared-memory *internal* layout
  * (BfSharedMemory) is this framework's own, carried behind the same API.
  */
-#ifndef BEAMFORMER_TPU_ABI_H
-#define BEAMFORMER_TPU_ABI_H
+#ifndef BEAMFORMER_ABI_H
+#define BEAMFORMER_ABI_H
 
 #include <stdint.h>
 
@@ -312,4 +312,4 @@ typedef struct {
 	u64 scratch_size;
 } BfSharedMemory;
 
-#endif /* BEAMFORMER_TPU_ABI_H */
+#endif /* BEAMFORMER_ABI_H */

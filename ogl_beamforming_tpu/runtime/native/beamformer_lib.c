@@ -2,7 +2,7 @@
  *
  * Implements the reference's ogl_beamformer_lib client API surface
  * (reference: lib/ogl_beamformer_lib_base.h:37-173) over a POSIX
- * shared-memory region, plus the server-side entry points the Python/TPU
+ * shared-memory region, plus the server-side entry points the Python
  * process uses to service work (create region, wait for work via futex,
  * read RF from scratch, publish frames/stats, signal completion).
  *
@@ -837,7 +837,7 @@ EXPORT u32 beamformer_set_live_parameters(BeamformerLiveImagingParameters *live)
 }
 
 /* ------------------------------------------------------------------ */
-/* server API (used by the Python/TPU process via ctypes)              */
+/* server API (used by the Python process via ctypes)                  */
 /* ------------------------------------------------------------------ */
 
 EXPORT void *bf_server_create(u64 total_size)

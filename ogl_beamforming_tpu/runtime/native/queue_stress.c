@@ -1,8 +1,8 @@
 /* Multi-producer / single-consumer stress test for the shared-memory work
  * queue (the claim/commit protocol in beamformer_lib.c:queue_push/queue_pop).
  *
- * Exercises the exact race the round-1 review flagged: a consumer polling
- * while producers publish.  Every BfWork payload is self-checking (arg1 is
+ * Exercises the publish race: a consumer polling while producers
+ * publish.  Every BfWork payload is self-checking (arg1 is
  * a mix of the other fields) so torn reads are detected, and per-producer
  * sequence numbers verify exactly-once FIFO delivery.
  *

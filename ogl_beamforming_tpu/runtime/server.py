@@ -1,6 +1,6 @@
-"""Shared-memory server: bridges the native client ABI into the TPU executor.
+"""Shared-memory server: bridges the native client ABI into the executor.
 
-The TPU-process counterpart of the reference's compute worker
+The counterpart of the reference's compute worker
 (beamformer.c:292-305, beamformer_core.c:1420-1726): creates the shared
 memory region, sleeps on the work futex, and for each work item commits
 dirty parameter regions into the :class:`..pipeline.executor.Beamformer`,
@@ -23,6 +23,7 @@ from ..params.types import (ChirpParameters, EmissionParameters,
                             FilterParameters, KaiserFilterParameters,
                             MatchedChirpFilterParameters, Parameters)
 from ..pipeline.executor import Beamformer
+from ..utils.device import enable_compile_cache
 from . import abi
 
 log = logging.getLogger("ogl_beamforming_tpu.server")
@@ -125,6 +126,7 @@ class BeamformerServer:
     # -- lifecycle ------------------------------------------------------
 
     def start(self):
+        enable_compile_cache()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="beamformer-server")
         self._thread.start()

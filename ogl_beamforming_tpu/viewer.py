@@ -1,6 +1,6 @@
 """Frame visualization: B-mode rendering, A-scan plots, live display.
 
-The TPU-library replacement for the reference's interactive Vulkan/raylib UI
+The library replacement for the reference's interactive Vulkan/raylib UI
 (reference: ui.c — frame views, 3D X-plane views, compute-stats panels).
 Rendering uses the same display transfer function as the reference's
 fragment shader (render_3d.frag.glsl:61-70) via ops/display.py; output is
@@ -13,14 +13,13 @@ from __future__ import annotations
 import numpy as np
 
 from .ops.display import display_map
-from .utils.transfer import to_host
 
 
 def frame_to_bmode(frame, db_cutoff: float = -60.0, threshold: float = 1.0,
                    gamma: float = 1.0) -> np.ndarray:
     """Beamformed frame -> [0,1] display values (nx, ny, nz)."""
     data = frame.data if hasattr(frame, "data") else frame
-    return to_host(display_map(data, db_cutoff, threshold, gamma))
+    return np.asarray(display_map(data, db_cutoff, threshold, gamma))
 
 
 def bmode_image(frame, plane: str = "xz", index: int = 0,
@@ -55,7 +54,7 @@ def a_scan(frame, lateral_index: int = 0) -> np.ndarray:
     For 2D frames (nx, n_axial, 1) the axial dimension is axis 1 (the
     das_transform_2d convention); 3D volumes use z with y centered.
     """
-    data = to_host(frame.data if hasattr(frame, "data") else frame)
+    data = np.asarray(frame.data if hasattr(frame, "data") else frame)
     if data.ndim == 3:
         data = data[:, :, 0] if data.shape[2] == 1 \
             else data[:, data.shape[1] // 2, :]

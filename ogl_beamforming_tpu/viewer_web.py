@@ -601,8 +601,7 @@ class LiveView:
         frames = self.beamformer.get_last_frames(1)
         if not frames:
             return {"values": [], "ax_mm": []}
-        from .utils.transfer import to_host
-        data = to_host(frames[-1].data)
+        data = np.asarray(frames[-1].data)
         if data.ndim == 3:
             data = data[:, :, 0] if data.shape[2] == 1 \
                 else data[:, data.shape[1] // 2, :]

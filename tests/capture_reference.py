@@ -1,4 +1,4 @@
-"""One-time reference-GPU output capture (VERDICT r2 Missing #2).
+"""One-time reference-GPU output capture.
 
 Run this ONCE on a machine with a GPU where the reference
 (rnpnr/ogl_beamforming) is built and its beamformer app is running:
@@ -12,7 +12,7 @@ structs are ABI-compatible by construction — runtime/abi.py cross-checks
 layouts at load) with the exact deterministic inputs of the committed
 point-target fixture, and saves the GLSL shader outputs into
 ``tests/data/reference_capture/``.  Once those .npy files exist,
-``tests/test_reference_capture.py`` compares every TPU compute path
+``tests/test_reference_capture.py`` compares every compute path
 against true reference-GPU output instead of only the NumPy golden model.
 
 Captured cases (all from tests/data/point_targets.zbp, C=32 A=16 S=1024):

@@ -1,4 +1,4 @@
-"""Shared-memory IPC: C client library <-> Python/TPU server, end to end.
+"""Shared-memory IPC: C client library <-> Python server, end to end.
 
 Builds the native library, starts a server thread (CPU-JAX executor),
 then drives the reference client ABI through ctypes exactly as an external
@@ -29,7 +29,7 @@ from ogl_beamforming_tpu.utils.transforms import das_transform_2d_xz
 
 @pytest.fixture(scope="module")
 def server():
-    os.environ["OGL_BEAMFORMER_SHM_NAME"] = f"/bf_tpu_test_{os.getpid()}"
+    os.environ["OGL_BEAMFORMER_SHM_NAME"] = f"/bf_test_{os.getpid()}"
     srv = BeamformerServer(shm_size=64 << 20)
     srv.start()
     yield srv
@@ -287,7 +287,7 @@ def test_multi_block_and_capacity_queries(server, rng):
 
 def test_queue_stress_sanitizers():
     """Multi-producer queue claim/commit protocol under TSan + ASan/UBSan
-    (the round-1 publish race: beamformer_lib.c queue_push/queue_pop)."""
+    (the publish race in beamformer_lib.c queue_push/queue_pop)."""
     import shutil
     import subprocess
     native = os.path.join(os.path.dirname(abi.__file__), "native")

@@ -93,7 +93,7 @@ def test_feed_rf_matches_unsharded_pipeline(plan8):
 
 @pytest.mark.slow
 def test_two_process_feed_rf_matches_single_process(tmp_path):
-    """VERDICT r2 Missing #5: REAL 2-process jax.distributed run on CPU —
+    """REAL 2-process jax.distributed run on CPU —
     each process feeds only its local channel rows; the assembled frame
     must match the single-process pipeline bit-for-bit (same XLA program
     per shard) within float tolerance."""

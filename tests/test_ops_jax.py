@@ -1,4 +1,4 @@
-"""JAX TPU ops vs the NumPy golden oracle (<= 1e-3 NRMSE, BASELINE.md)."""
+"""JAX ops vs the NumPy golden oracle (<= 1e-3 NRMSE, BASELINE.md)."""
 
 import numpy as np
 import pytest
@@ -211,117 +211,52 @@ def test_das_undispatched_kinds_zero(rng):
     assert np.all(np.asarray(out) == 0)
 
 
-def test_decode_pallas_matches_golden(rng):
-    """Fused int16 split-bf16 Pallas decode vs golden (interpret mode)."""
-    import jax.numpy as jnp
-    from ogl_beamforming_tpu.ops.decode import (decode_hadamard_pallas,
-                                                hadamard_matrix)
-    # 12 and 20 are the Kronecker-seed orders whose A % 8 != 0: they
-    # zero-pad the acquisition axis inside the kernel wrapper (exact).
-    for c, a, s in [(4, 16, 512), (2, 64, 1024), (2, 32, 300),
-                    (2, 12, 256), (2, 20, 256)]:
-        rf = rng.integers(-32768, 32767, (c, a, s)).astype(np.int16)
-        h = hadamard_matrix(a)
-        out = np.asarray(decode_hadamard_pallas(jnp.asarray(rf), h,
-                                                interpret=True))
-        ref = golden.decode_hadamard(rf, np.asarray(h))
-        assert out.shape == ref.shape
-        assert np.abs(out - ref).max() <= 2e-3   # ~1e-7 relative
+# tests/decode.c:17-19 sweeps this transmit set, including the 12/20-seed
+# Kronecker orders.
+DECODE_SWEEP_FULL = (2, 4, 8, 12, 16, 20, 24, 32, 40, 48, 64, 80, 96, 128,
+                     160, 192, 256)
 
 
-def test_decode_pallas_complex_and_f32(rng):
-    """Complex64 frames (demodulate-first pipelines) and plain f32 run the
-    fused kernel as interleaved/plain f32 planes — matches golden within
-    the bf16 hi+lo split budget (~2e-5 relative)."""
-    import jax.numpy as jnp
-    from ogl_beamforming_tpu.ops.decode import (decode_hadamard_pallas,
-                                                hadamard_matrix)
-
-    c, a, s = 3, 16, 384
-    h = hadamard_matrix(a)
-    rf_c = (rng.standard_normal((c, a, s))
-            + 1j * rng.standard_normal((c, a, s))).astype(np.complex64) * 100
-    out = np.asarray(decode_hadamard_pallas(jnp.asarray(rf_c), h,
-                                            interpret=True))
-    ref = golden.decode_hadamard(rf_c, np.asarray(h))
-    assert out.dtype == np.complex64 and out.shape == ref.shape
-    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-4
-
-    rf_f = rng.standard_normal((c, a, s)).astype(np.float32) * 100
-    out = np.asarray(decode_hadamard_pallas(jnp.asarray(rf_f), h,
-                                            interpret=True))
-    ref = golden.decode_hadamard(rf_f, np.asarray(h))
-    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-4
+@pytest.mark.parametrize("a", DECODE_SWEEP_FULL)
+def test_decode_full_int16_range_exact(rng, a):
+    """Raw RF over the full int16 range decodes exactly (up to the 1/T
+    scale) at every order of the reference's sweep: a TF32 product would
+    be off by up to 2^-11 relative."""
+    c, s = 2, 32
+    rf = rng.integers(-32768, 32768, (c, a, s), dtype=np.int16)
+    rf[0, 0, :2] = (-32768, 32767)
+    ref = np.einsum("tj,cjs->cts", hadamard(a).astype(np.float64),
+                    rf.astype(np.float64)) / a
+    out = np.asarray(decode_hadamard(rf, hadamard_matrix(a)))
+    assert out.shape == ref.shape and out.dtype == np.float32
+    assert np.abs(out - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
-def test_autotune_decode_interface(rng, tmp_path):
-    """autotune_decode degrades gracefully when no candidate compiles
-    (CPU has no Mosaic); on TPU it installs the fastest knobs in
-    DECODE_TUNED keyed by shape, leaves DECODE_ABLATE untouched, and the
-    persisted table roundtrips."""
-    import jax.numpy as jnp
-    from ogl_beamforming_tpu.ops import decode as dec
-
-    rf = rng.integers(-512, 512, (4, 16, 256)).astype(np.int16)
-    h = dec.hadamard_matrix(16)
-    path = str(tmp_path / "decode_tuned.json")
-    best, results = dec.autotune_decode(jnp.asarray(rf), h, iters=1,
-                                        warmup=0, passes=1, save_path=path)
-    assert isinstance(best, dict)
-    assert results                      # every candidate was attempted
-    assert dec.DECODE_ABLATE == {}      # explicit overrides untouched
-    installed = dec.DECODE_TUNED.pop((4, 16, 256), None)
-    if installed is not None:           # TPU: fastest knobs installed
-        assert installed == best
-        dec.load_decode_tuned(path)
-        assert dec.DECODE_TUNED.pop((4, 16, 256)) == best
+@pytest.mark.parametrize("complex_rf", [False, True])
+def test_decode_float_input(rng, complex_rf):
+    """f32 and complex64 frames (demodulate-first pipelines) decode at
+    float32 accuracy."""
+    c, a, s = 3, 16, 96
+    rf = rng.standard_normal((c, a, s)).astype(np.float32) * 3000
+    if complex_rf:
+        rf = (rf + 3000j * rng.standard_normal((c, a, s))).astype(
+            np.complex64)
+    ref = np.einsum("tj,cjs->cts", hadamard(a).astype(np.float64),
+                    rf.astype(np.complex128 if complex_rf else np.float64)
+                    ) / a
+    out = np.asarray(decode_hadamard(rf, hadamard_matrix(a)))
+    assert out.dtype == (np.complex64 if complex_rf else np.float32)
+    assert np.abs(out - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
-def test_decode_tuned_applied(rng):
-    """A DECODE_TUNED entry for the shape is used by the kernel (interpret
-    mode validates numerics under tuned knobs), and ABLATE overrides it."""
-    import jax.numpy as jnp
-    from ogl_beamforming_tpu.ops import decode as dec
-
-    c, a, s = 4, 16, 256
-    rf = rng.integers(-512, 512, (c, a, s)).astype(np.int16)
-    h = dec.hadamard_matrix(a)
-    ref = golden.decode_hadamard(rf, np.asarray(h))
-    try:
-        dec.DECODE_TUNED[(c, a, s)] = {"i8": 1, "cb": 2}
-        dec._decode_call.cache_clear()
-        out = np.asarray(dec.decode_hadamard_pallas(jnp.asarray(rf), h,
-                                                    interpret=True))
-    finally:
-        dec.DECODE_TUNED.pop((c, a, s), None)
-        dec._decode_call.cache_clear()
-    assert np.abs(out - ref).max() <= 2e-3
-
-
-def test_decode_pallas_i8_exact(rng):
-    """Both kernel variants (split-bf16 2-pass and int8 2-pass) are exact
-    for full-range int16 inputs, pinned explicitly via DECODE_ABLATE."""
-    import jax.numpy as jnp
-    from ogl_beamforming_tpu.ops import decode as dec
-
-    c, a, s = 4, 16, 384
-    rf = rng.integers(-32768, 32767, (c, a, s)).astype(np.int16)
-    rf[0, 0, 0] = -32768                    # extreme corner values
-    rf[0, 0, 1] = 32767
-    h = dec.hadamard_matrix(a)
-    ref = golden.decode_hadamard(rf, np.asarray(h))
-    outs = {}
-    try:
-        for name, knobs in [("bf16", {"i8": 0}), ("i8", {"i8": 1})]:
-            dec.DECODE_ABLATE.clear()
-            dec.DECODE_ABLATE.update(knobs)
-            dec._decode_call.cache_clear()
-            outs[name] = np.asarray(dec.decode_hadamard_pallas(
-                jnp.asarray(rf), h, interpret=True))
-    finally:
-        dec.DECODE_ABLATE.clear()
-        dec._decode_call.cache_clear()
-    for name, out in outs.items():
-        assert np.abs(out - ref).max() <= 2e-3, name
-    # the two variants agree bitwise (both integer-exact before the scale)
-    assert np.array_equal(outs["bf16"], outs["i8"])
+@pytest.mark.parametrize("length", [16, 128])
+def test_fir_unrolled_matches_conv(rng, length, monkeypatch):
+    """The tap-unrolled FIR and the conv path (taken past
+    ``_UNROLL_MAX_TAPS``) give the same strided correlation."""
+    from ogl_beamforming_tpu.ops import filtering
+    x = rng.standard_normal((2, 3, 256)).astype(np.float32)
+    h = rng.standard_normal(length).astype(np.float32)
+    unrolled = np.asarray(filtering._conv1d(x, h, 2))
+    monkeypatch.setattr(filtering, "_UNROLL_MAX_TAPS", 0)
+    conv = np.asarray(filtering._conv1d(x, h, 2))
+    assert nrmse(conv, unrolled) < 1e-6

@@ -201,7 +201,7 @@ def test_panels_page(view):
 
 def test_bad_request_returns_400(view):
     # malformed query values must produce a 4xx, not a dropped connection
-    # (ADVICE r2: size=0 divided by zero server-side)
+    # (size=0 once divided by zero server-side)
     import urllib.error
     for path in ("frame.png?db=nan-garbage", "mip.png?size=abc",
                  "oblique.png?nx=zz"):
